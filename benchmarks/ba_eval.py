@@ -1,9 +1,9 @@
 """Ground-truth solver comparison: joint BA vs batched ICM.
 
-VERDICT round-1 asked whether the joint Gauss-Newton optimum ever beats
-ICM's coordinate-descent fixed point.  This harness answers with data:
-synthetic worlds with KNOWN true trajectories + landmarks, swept over
-odometry-drift levels, plus the real-dataset golden comparison.
+Does the joint Gauss-Newton optimum ever beat ICM's coordinate-descent
+fixed point?  This harness answers with data: synthetic worlds with KNOWN
+true trajectories + landmarks, swept over odometry-drift levels, plus the
+golden comparison.
 
     python benchmarks/ba_eval.py [--cpu] [--T 600] [--iters 6]
 

@@ -1,18 +1,16 @@
 """Fleet scaling curve: refine-loop throughput vs replicated world count W.
 
-The roofline (benchmarks/roofline.py) classifies a single reference-scale
-run as latency-bound (~40x above its speed-of-light bound, ~0.015% MFU):
-the chip idles through the sweep's sequential dependency chain, so extra
-*parallel* worlds per step should be nearly free until the latency headroom
-is consumed.  This harness converts that claim into a measurement: W
-replicated ijac2018 worlds through one vmapped fused refine loop
-(solver.icm's fleet path), per-world ms/iter and aggregate frames/s vs W.
+A single reference-scale run is latency-bound: the device idles through
+the sweep's sequential dependency chain, so extra *parallel* worlds per
+step should be nearly free until that headroom is consumed.  This harness
+measures it: W replicated reference-shape worlds through one vmapped
+fused refine loop (solver.icm's fleet path), per-world ms/iter and
+aggregate frames/s vs W.
 
     python benchmarks/fleet_curve.py [--ws 1,2,4,8,16,32,64] [--iters 30]
 
 Prints a CUMULATIVE JSON line after each completed W, so a harness timeout
-mid-curve still leaves the partial curve as the last stdout line
-(tools/remeasure.sh captures `tail -1`).
+mid-curve still leaves the partial curve as the last stdout line.
 """
 import argparse
 import json
@@ -30,7 +28,7 @@ def main():
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--reps", type=int, default=3,
                     help="timed chained reps per W; median reported")
-    ap.add_argument("--dataset", default="ijac2018")
+    ap.add_argument("--dataset", default="reference")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--profile",
                     choices=["fast", "default", "turbo", "ultra", "max"],
@@ -40,11 +38,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    else:
-        from icm_slam_tpu.benchmarks.headline import _guard_tpu_backend
-        rc = _guard_tpu_backend()
-        if rc:
-            return rc
+    elif jax.devices()[0].platform != "gpu":
+        raise SystemExit("no GPU found; pass --cpu for a CPU run")
     import jax.numpy as jnp
 
     from icm_slam_tpu.config import ICMConfig
@@ -93,7 +88,7 @@ def main():
         mb, xb, _, _ = loop(data_b, map_b, x_b)   # compile + warmup
         jax.block_until_ready(xb)
         compile_s = time.perf_counter() - t0
-        # chained-median protocol, shared helper (CLAUDE.md traps)
+        # chained-median protocol, shared helper
         from icm_slam_tpu.benchmarks.timing import timed_chained_median_s
         med_s, _, _ = timed_chained_median_s(
             lambda mm, xs: loop(data_b, mm, xs)[:2], mb, xb, args.reps)

@@ -1,8 +1,7 @@
 """Loop-closure capability, quantified against ground truth.
 
-VERDICT r2 #7: the scan-ICP + pose-graph loop closure
-(models/loop_closure.py) is unit-tested but had no headline evidence.
-This experiment produces it:
+The scan-ICP + pose-graph loop closure (models/loop_closure.py) is
+unit-tested; this experiment measures what it buys:
 
 * a synthetic long-loop world with *real* odometry drift — the published
   odometry (and the controls the kinematic potential consumes) are
@@ -20,7 +19,7 @@ The reference has no loop-closure capability at all (SURVEY §2) — this is
 a beyond-reference component, so the comparison is against ground truth,
 not against a reference trace.
 
-Operating regime (measured, docs/RESULTS.md): pose-graph closure helps
+Operating regime (measured): pose-graph closure helps
 when the accumulated drift is large against the ICP closure measurement
 noise (~6-7 cm RMS here).  Below that — e.g. a short 800-frame run where
 ICM alone reaches 0.06 m ATE — the correction substitutes noisier closure

@@ -1,14 +1,11 @@
 """Alternative-backend timing: per-iter cost + ATE for every sweep_mode.
 
 The headline bench (icm_slam_tpu/benchmarks/headline.py) measures the
-production `batched` mode; the quality matrix in docs/RESULTS.md also
-quotes per-iter times for the alternative backends (`windowed_ba`
-64-keyframe joint GN blocks, `ba` full-chain Schur/PCG, `sequential`
-reference-fidelity Gauss-Seidel).  This harness re-measures those rows
-with the same honest protocol as the headline bench: chained state (a
-fresh nudged input per rep — same-input repeats are runtime-memoized,
-CLAUDE.md), median of reps, compile excluded by warmup, ATE vs the
-golden trace self-reported.
+production `batched` mode; this harness measures the alternative
+backends (`windowed_ba` 64-keyframe joint GN blocks, `ba` full-chain
+Schur/PCG, `sequential` reference-fidelity Gauss-Seidel) with the same
+protocol as the headline bench: chained state, median of reps, compile
+excluded by warmup, ATE vs the golden trace self-reported.
 
     python benchmarks/modes_bench.py [--modes windowed_ba,ba,sequential]
                                      [--iters 30] [--seq-iters 6] [--cpu]
@@ -28,7 +25,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--modes", default="windowed_ba,ba,sequential")
-    ap.add_argument("--dataset", default="ijac2018")
+    ap.add_argument("--dataset", default="reference")
     ap.add_argument("--iters", type=int, default=30,
                     help="sweeps per timed call for the fused modes (30 = "
                          "golden depth, so the ATE row is free)")
@@ -46,11 +43,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    else:
-        from icm_slam_tpu.benchmarks.headline import _guard_tpu_backend
-        rc = _guard_tpu_backend()
-        if rc:
-            return rc
+    elif jax.devices()[0].platform != "gpu":
+        raise SystemExit("no GPU found; pass --cpu for a CPU run")
     import jax.numpy as jnp
     import numpy as np
 
@@ -89,12 +83,9 @@ def main():
         x30 = None
         if mode == "sequential":
             # per-iteration programs (no fused loop for this mode); time
-            # a chained run of --seq-iters sweeps, ATE from a full-30 run.
-            # The first timed call must NOT reuse the warmup's exact input
-            # buffers (runtime memoization, CLAUDE.md) — nudge x first.
-            _refine_jit(data, cur_map, x, cfg)  # compile
-            m, xx = cur_map, x + jnp.asarray(1e-30, x.dtype)
-            jax.block_until_ready(xx)
+            # a chained run of --seq-iters sweeps, ATE from a full-30 run
+            jax.block_until_ready(_refine_jit(data, cur_map, x, cfg))
+            m, xx = cur_map, x
             t0 = time.perf_counter()
             for _ in range(args.seq_iters):
                 m, xx, _ = _refine_jit(data, m, xx, cfg)

@@ -13,7 +13,7 @@ default config vs the default+overrides candidate, compared on
   have ground truth).
 
 Round-3 findings reproduced by this tool: ``pose_update=jacobi`` diverges
-on 0/10 worlds; the C=64 init recipe diverges on 9/10 (docs/RESULTS.md).
+on 0/10 worlds; the C=64 init recipe diverges on 9/10.
 
     python benchmarks/ood_fuzz.py '{"init_gn_iters": 4}' [--worlds 10]
                                   [--iters 15] [--ate-tol 0.02]

@@ -1,8 +1,8 @@
 """Scaling-efficiency harness: the batched ICM sweep over mesh sizes.
 
-On a real multi-chip TPU slice this measures true scaling; on a single host
-it can also run over virtual CPU devices (--cpu) to validate the collective
-code path and measure partitioning overheads.
+On a multi-GPU host this measures true scaling; it can also run over
+virtual CPU devices (--cpu) to validate the collective code path (CPU
+times are not device numbers).
 
     python benchmarks/scaling.py [--devices 1 2 4 8] [--frames 0] [--cpu]
 
@@ -38,7 +38,7 @@ def main():
 
     from icm_slam_tpu.config import ICMConfig
     from icm_slam_tpu.core.energy import weights
-    from icm_slam_tpu.data.datasets import load_ijac2018
+    from icm_slam_tpu.data.datasets import reference_world
     from icm_slam_tpu.mapping.landmark_map import filter_map
     from icm_slam_tpu.parallel.mesh import (make_mesh, replicated,
                                             shard_sweep_inputs, time_sharding)
@@ -46,7 +46,7 @@ def main():
                                          resolve_config, seed_map)
     from icm_slam_tpu.solver.sweeps import refine_sweep_batched
 
-    ds = load_ijac2018("/root/reference/scripts/data_IJAC2018.mat")
+    ds = reference_world()
     if args.frames:
         ds = ds.slice(args.frames)
     cfg = ICMConfig(N=1, L=1024, dtype="float32")

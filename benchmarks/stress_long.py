@@ -17,9 +17,6 @@ def main():
     ap.add_argument("--landmarks", type=int, default=300)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--pallas", choices=["auto", "on", "off"], default="auto",
-                    help="force the Pallas association kernel on/off "
-                         "(the VERDICT #7 A/B at stress scale)")
     ap.add_argument("--profile",
                     choices=["fast", "default", "turbo", "ultra", "max"],
                     default="default",
@@ -28,14 +25,14 @@ def main():
     ap.add_argument("--cap", type=int, default=128,
                     help="map_run_cap in CHECKED mode (runtime-witnessed, "
                          "exact-or-error: an undersized cap raises instead "
-                         "of truncating); 0 = full-width paths.  TPU A/B "
-                         "medians at 20k frames: 203.8 ms/iter at 128, "
-                         "247.7 at 512, 264.8 full-width")
+                         "of truncating); 0 = full-width paths")
     args = ap.parse_args()
 
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    elif jax.devices()[0].platform != "gpu":
+        raise SystemExit("no GPU found; pass --cpu for a CPU run")
     import json
 
     import jax.numpy as jnp
@@ -51,9 +48,6 @@ def main():
                          world_size=120.0, seed=0)
     gen_s = time.perf_counter() - t0
 
-    on_tpu = jax.devices()[0].platform != "cpu"
-    # default off: measured neutral at this scale (243 vs 241 ms/iter)
-    use_pallas = on_tpu and args.pallas == "on"
     # the cota bound (total_obs / 50 >> L) would disable the cap outright,
     # but the world only holds ~300 landmarks: CHECKED cap mode keeps the
     # fast cap-sliced association/filter paths and every sweep's witness
@@ -61,7 +55,6 @@ def main():
     p, g = {"fast": (1, 6), "default": (2, 8), "turbo": (1, 3),
             "ultra": (1, 2), "max": (1, 1)}[args.profile]
     cfg = ICMConfig(N=args.iters, L=1024, cota=50.0, dtype="float32",
-                    use_pallas_assoc=use_pallas,
                     pose_passes=p, pose_gn_iters=g,
                     map_run_cap=args.cap,
                     map_run_cap_checked=args.cap > 0)
@@ -100,7 +93,7 @@ def main():
         check_witness(w, cfg, f"refinement sweep {k}")
 
     print(json.dumps({
-        "frames": args.frames, "pallas": use_pallas,
+        "frames": args.frames,
         "profile": args.profile,
         "landmarks_world": args.landmarks,
         "landmarks_mapped": int(m.nact),

@@ -16,7 +16,7 @@ from icm_slam_tpu.utils.viz import plot_convergence, plot_slam
 
 ap = argparse.ArgumentParser()
 ap.add_argument("--iters", type=int, default=10)
-ap.add_argument("--dataset", default="ijac2018")
+ap.add_argument("--dataset", default="reference")
 args = ap.parse_args()
 
 ds = load(args.dataset)

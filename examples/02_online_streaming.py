@@ -17,7 +17,7 @@ ap = argparse.ArgumentParser()
 ap.add_argument("--hz", type=float, default=0.0, help="0 = full speed")
 args = ap.parse_args()
 
-ds = load("ijac2018").slice(600)
+ds = load("reference").slice(600)
 engine = OnlineSLAM(ICMConfig(N=5), chunk_size=64, verbose=True)
 for ranges, odom, u in stream_dataset(ds, hz=args.hz):
     engine.push(ranges, odom, u)

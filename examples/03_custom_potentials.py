@@ -29,7 +29,7 @@ model = EnergyModel(obs_scale=range_weighted_h,
                     extra_one_sided=soft_odometry_anchor,
                     extra_two_sided=soft_odometry_anchor)
 
-ds = load("ijac2018").slice(600)
+ds = load("reference").slice(600)
 res = run(ds, ICMConfig(N=5, model=model), verbose=True)
 print(f"custom-model run: {res.map_pos.shape[0]} landmarks")
 

@@ -9,8 +9,9 @@ os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 
 import jax
 
-if jax.devices()[0].platform != "cpu" and len(jax.devices()) < 2:
-    jax.config.update("jax_platforms", "cpu")  # single local chip -> demo on CPU mesh
+if len(jax.devices()) < 2:
+    # one local accelerator: demonstrate on the 8 virtual CPU devices
+    jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 
 from icm_slam_tpu import ICMConfig
@@ -22,8 +23,8 @@ from icm_slam_tpu.parallel.mesh import (make_mesh, replicated,
 from icm_slam_tpu.solver.icm import _filter_jit, _init_jit, prepare, seed_map
 from icm_slam_tpu.solver.sweeps import refine_sweep_batched
 
-ds = load("ijac2018").slice(400)
-cfg = ICMConfig(N=1, L=256)
+ds = load("reference").slice(400)
+cfg = ICMConfig(N=1)
 data = prepare(ds, cfg)
 x0 = jnp.asarray(ds.x0, data.dist.dtype)
 state, x, _ = _init_jit(data, seed_map(data, x0, cfg), x0, cfg)

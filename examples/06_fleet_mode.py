@@ -1,15 +1,13 @@
 """Fleet mode: N independent SLAM worlds in ONE device program.
 
-The measured scaling curve (benchmarks/fleet_curve.py, round-4 on-chip)
-peaks at W=8 worlds: 1.74-2.29x the single-world aggregate throughput —
-1.56M frames/s at the max profile (1.04M at turbo) — i.e. 8 worlds
-finish in ~3.5-4.4x the latency of one.  ``run_batched`` is the
-amortization tool for multi-robot mapping, Monte-Carlo noise studies,
+One world leaves the device mostly idle through the sweep's sequential
+dependency chain, so W worlds finish in well under W times the latency of
+one (benchmarks/fleet_curve.py measures the curve).  ``run_batched`` is
+the amortization tool for multi-robot mapping, Monte-Carlo noise studies,
 and parameter ensembles, all sharing one compiled pipeline (init sweep
--> map filter -> fused N-iteration refinement loop).  On a multi-chip
+-> map filter -> fused N-iteration refinement loop).  On a multi-device
 mesh the world axis also SHARDS (data parallelism, zero collectives):
-pass ``mesh=parallel.mesh.make_fleet_mesh()`` and the W=8 knee
-multiplies by the device count.
+pass ``mesh=parallel.mesh.make_fleet_mesh()``.
 
 Run: python examples/06_fleet_mode.py
 """

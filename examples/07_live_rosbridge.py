@@ -41,8 +41,8 @@ def main():
     from icm_slam_tpu.runtime.ingest import RosBridgeSource
     from icm_slam_tpu.runtime.replay import publish_to_rosbridge
 
-    cfg = ICMConfig(N=3, L=256)
-    ds = load("ijac2018").slice(200)
+    cfg = ICMConfig(N=3)
+    ds = load("reference").slice(200)
 
     # 2. subscriber first (rosbridge only fans out to live subscriptions)
     src = RosBridgeSource(cfg, host=server.host, port=server.port)

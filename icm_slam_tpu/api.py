@@ -1,4 +1,4 @@
-"""High-level user API: the reference's entry points, TPU-native.
+"""High-level user API: the reference's entry points.
 
 ``run_offline``  — entry point C equivalent (.mat replay through the full
                    pipeline: init + N ICM iterations), with optional

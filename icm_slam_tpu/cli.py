@@ -1,7 +1,7 @@
 """Command-line interface.
 
-    python -m icm_slam_tpu run --dataset ijac2018 --config <yaml> [...]
-    python -m icm_slam_tpu replay --dataset ijac2018 --hz 10 [...]
+    python -m icm_slam_tpu run --dataset reference --config <yaml> [...]
+    python -m icm_slam_tpu replay --dataset reference --hz 10 [...]
     python -m icm_slam_tpu online --host localhost --port 9090 [...]
     python -m icm_slam_tpu bench [...]
 
@@ -19,8 +19,9 @@ import sys
 
 
 def _add_common(ap):
-    ap.add_argument("--dataset", default="ijac2018",
-                    help="ijac2018 | palomar | synthetic | /path/to.mat")
+    ap.add_argument("--dataset", default="reference",
+                    help="reference (seeded reference-shape world) | "
+                         "synthetic | /path/to.mat")
     ap.add_argument("--config", default=None, help="reference-format YAML")
     ap.add_argument("--iters", type=int, default=None, help="override N")
     ap.add_argument("--frames", type=int, default=0, help="truncate frames")
@@ -38,26 +39,16 @@ def _add_common(ap):
     ap.add_argument("--profile",
                     choices=["fast", "default", "turbo", "ultra", "max"],
                     default=None,
-                    help="validated knob preset: fast = 1 pass x 6 LM "
-                         "iters (ATE 0.037), default = 2 x 8 (ATE 0.016), "
-                         "turbo = 1 x 3 (ATE 0.037-0.053; full-depth "
-                         "matrix green, docs/RESULTS.md); ultra = 1 x 2 "
-                         "and max = 1 x 1 — green on both reference "
-                         "datasets (ATE 0.036-0.045) but they reach "
-                         "DIFFERENT ICM fixed points on hard OOD worlds "
-                         "(benchmarks/ood_fuzz.py; docs/RESULTS.md) — "
-                         "per-deployment dials, not defaults")
+                    help="knob preset (pose_passes x pose_gn_iters): "
+                         "default = 2 x 8, fast = 1 x 6, turbo = 1 x 3, "
+                         "ultra = 1 x 2, max = 1 x 1.  The 1-pass presets "
+                         "can reach DIFFERENT ICM fixed points on hard "
+                         "worlds (benchmarks/ood_fuzz.py) — per-deployment "
+                         "dials, not defaults")
     ap.add_argument("--jacobi", action="store_true",
                     help="pose_update=jacobi: full Jacobi passes instead "
                          "of red-black half-pass pairs (half the "
                          "sequential LM depth; quality-gated in-suite)")
-    ap.add_argument("--pallas", action="store_true",
-                    help="use the Pallas correspondence kernel (opt-in; "
-                         "measured neutral vs XLA fusion at all tested "
-                         "scales)")
-    ap.add_argument("--pallas-fused", action="store_true",
-                    help="use the fused association+sums Pallas kernel "
-                         "(opt-in; ops/assoc_sums_pallas.py)")
     ap.add_argument("--map-cap", type=int, default=None, metavar="K",
                     help="map_run_cap override; with --checked-cap the cap "
                          "is kept under a runtime witness (exact-or-error) "
@@ -93,13 +84,6 @@ def _config(args):
         overrides["map_run_cap"] = args.map_cap
     if getattr(args, "checked_cap", False):
         overrides["map_run_cap_checked"] = True
-    if getattr(args, "pallas", False):
-        # opt-in only: measured neutral vs XLA's fused association at both
-        # reference scale (62.5 vs 63.1 ms/iter) and 20k-frame stress scale
-        # (243 vs 241 ms/iter) — see docs/RESULTS.md
-        overrides.setdefault("use_pallas_assoc", True)
-    if getattr(args, "pallas_fused", False):
-        overrides.setdefault("use_pallas_fused_assoc", True)
     if getattr(args, "profile", None):
         p, g = {"fast": (1, 6), "default": (2, 8), "turbo": (1, 3),
                 "ultra": (1, 2), "max": (1, 1)}[args.profile]

@@ -1,16 +1,14 @@
-"""Typed configuration for the TPU-native ICM-SLAM engine.
+"""Typed configuration for the ICM-SLAM engine.
 
 Parameter names and semantics are 1:1 with the reference YAML schema
 (``config_ros.yaml`` / ``config_default.yaml``; parsed by ConfigICM at
 reference ICM_SLAM.py:60-102), so existing reference configs load unchanged.
-TPU-specific knobs live in their own namespace and have safe defaults.
+Engine knobs live in their own namespace and have safe defaults.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional, Tuple
-
-import yaml
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,21 +50,11 @@ class ICMConfig:
                                      # whenever the sweep is batched and the
                                      # default kinematics/quirk apply, else
                                      # the faithful sequential scan
-    init_rounds: int = 2             # Picard rounds per chunk (batched init).
-                                     # Validated at N=30 on both datasets ×
-                                     # both profiles: R=2 matches or beats
-                                     # R=3's refined ATE (0.017-0.035 vs
-                                     # 0.016-0.037, census 11/11) at ~20 ms
-                                     # less init; R=1 keeps the census but
-                                     # costs real margin (ATE 0.05-0.06)
     init_chunk_len: int = 32         # frames per chunk of the batched init.
-                                     # 48 is faster (85 -> 59 ms) and wins
-                                     # at the 2-pass engine default, but its
-                                     # weaker init loses a landmark that the
-                                     # 1-pass fast profile never re-spawns
-                                     # (census 10/11, ATE 0.144) — 32 is the
-                                     # only setting validated across BOTH
-                                     # datasets AND profiles
+                                     # Its Picard rounds run to the fixed
+                                     # point, so this sets the cost (scan
+                                     # steps against rounds per chunk), not
+                                     # the result
     init_merge_cap: int = 0          # width of the batched init's final
                                      # duplicate merge: 0 = full L (default;
                                      # nothing bounds the raw allocated-
@@ -103,16 +91,6 @@ class ICMConfig:
                                      # latency-bound), different fixed-point
                                      # path; opt-in, quality-gated
     replicate_new_obs_quirk: bool = True  # ICM_SLAM.py:176 empty-slice quirk
-    use_pallas_assoc: bool = False   # fused TPU correspondence kernel
-    use_pallas_fused_assoc: bool = False
-                                     # one-kernel association + per-frame
-                                     # landmark sums (ops/assoc_sums_pallas)
-                                     # on the capped quirk path; opt-in
-                                     # until an in-context A/B on real
-                                     # hardware proves it (association
-                                     # distances compare in the d^2 form —
-                                     # borderline-gate beams may differ at
-                                     # f32 rounding from the sqrt path)
     obs_cap: int = 0                 # compact pose solves to this many beams
                                      # per frame (0 = no compaction; set >=
                                      # the dataset's max valid-beam count —
@@ -137,13 +115,12 @@ class ICMConfig:
     assoc_onehot_max_elems: int = 32_000_000
                                      # size gate for the one-hot-matmul
                                      # running-mean build in the batched
-                                     # sweep: used when T*B*(cap+1) fits
-                                     # (MXU contraction beats the scatter
-                                     # segment-sums at reference scale,
-                                     # 5.4 -> 4.3 ms/iter), else the
-                                     # scatter path (the materialized
-                                     # one-hot is HBM poison at 20k-frame
-                                     # stress scale).  0 disables one-hot.
+                                     # sweep: used when T*B*(cap+1) fits,
+                                     # else chunked one-hot sums (refine) or
+                                     # scatter segment-sums (init) — the
+                                     # materialized one-hot is too large at
+                                     # 20k-frame stress scale.  0 disables
+                                     # one-hot.
     ba_gn_iters: int = 4             # outer GN steps per BA refinement
     ba_cg_iters: int = 12            # PCG iterations per GN step; block-
                                      # Jacobi preconditioning makes 12
@@ -161,6 +138,7 @@ class ICMConfig:
     @staticmethod
     def from_yaml(path: str, **overrides) -> "ICMConfig":
         """Load a reference-format YAML (top-level key ``D``)."""
+        import yaml
         with open(path) as f:
             data = yaml.safe_load(f)
         d = data.get("D", data)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
+import jax
 import jax.numpy as jnp
 
 from icm_slam_tpu.core.geometry import rot2, unicycle_step, wrap_angle
@@ -50,7 +51,7 @@ class EnergyModel:
     The reference exposes subclass hooks g/h/fun_x/fun_xn for users to
     swap the kinematic model and potentials wholesale (example.py:13-35,
     external_options.py:17-35; base definitions ICM_ROS.py:171-278).  The
-    TPU-native equivalent is functional: pass replacement callables here;
+    equivalent here is functional: pass replacement callables here;
     every hook must be jittable.  Costs are expressed as RESIDUAL VECTORS
     r with energy == sum(r**2) — the form the vmapped LM solver consumes
     (any quadratic-form potential, like every cost in the reference,
@@ -103,7 +104,9 @@ def _odo_residual(th_anchor, odo0, odo1, dxy, dth):
     rot2(odo0_theta) @ (odo1_xy - odo0_xy) - rot2(th_anchor) @ dxy, plus the
     wrapped heading increment mismatch.
     """
-    rxy = (rot2(odo0[2]) @ (odo1[:2] - odo0[:2])) - (rot2(th_anchor) @ dxy)
+    hi = jax.lax.Precision.HIGHEST  # no TF32 rounding on a GPU
+    rxy = (jnp.matmul(rot2(odo0[2]), odo1[:2] - odo0[:2], precision=hi)
+           - jnp.matmul(rot2(th_anchor), dxy, precision=hi))
     rth = wrap_angle(odo1[2] - odo0[2] - dth)
     return jnp.concatenate([rxy, rth[None]])
 

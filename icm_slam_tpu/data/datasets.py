@@ -186,15 +186,42 @@ def drifted_world(T=2000, n_landmarks=150, world_size=50.0, seed=3,
     return drifted, x_true, landmarks
 
 
+# The reference's data_IJAC2018.mat run, at its shapes: 1833 frames of 181
+# beams at 1 degree, 10 m range, dt 0.1 s.  n_landmarks / world_size / seed
+# are chosen so that under configs/reference.yaml's physics (L=1024, cota
+# 300, dist_thr 1.0, N=30) the NumPy oracle keeps 13 landmarks, near the
+# 11 of the reference's own run.
+REFERENCE_WORLD = dict(T=1833, n_landmarks=80, world_size=50.0, seed=0)
+
+
+def reference_world(seed: int = REFERENCE_WORLD["seed"],
+                    T: int = REFERENCE_WORLD["T"], return_truth=False):
+    """Seeded world at the reference dataset's shapes (``REFERENCE_WORLD``).
+
+    Other seeds give distinct worlds of the same shape and density (the
+    fleet checks use them).  ``return_truth`` also returns the true
+    trajectory (T, 3) and landmarks (n, 2), as ``synthetic_world`` does.
+    """
+    out = synthetic_world(T=T, n_landmarks=REFERENCE_WORLD["n_landmarks"],
+                          world_size=REFERENCE_WORLD["world_size"],
+                          seed=seed, return_truth=return_truth)
+    ds = out[0] if return_truth else out
+    ds.name = f"reference-seed{seed}"
+    # like the reference's data_IJAC2018.mat (load_ijac2018) and a live
+    # robot, the run starts from the first odometry pose
+    ds.x0 = ds.odom[0].copy()
+    return out
+
+
 def load(name_or_path: str, **kw) -> Dataset:
-    if name_or_path.endswith("data_IJAC2018.mat") or name_or_path == "ijac2018":
-        path = name_or_path if name_or_path.endswith(".mat") else \
-            "/root/reference/scripts/data_IJAC2018.mat"
-        return load_ijac2018(path)
-    if "palomar" in name_or_path:
-        path = name_or_path if name_or_path.endswith(".mat") else \
-            "/root/reference/scripts/datos_palomar1.mat"
-        return load_palomar(path, **kw)
+    """``reference`` | ``synthetic`` | a path to a reference ``.mat`` file
+    (``data_IJAC2018.mat`` layout, or ``datos_palomar*.mat``)."""
+    if name_or_path == "reference":
+        return reference_world(**kw)
     if name_or_path == "synthetic":
         return synthetic_world(**kw)
+    if name_or_path.endswith(".mat"):
+        if "palomar" in name_or_path:
+            return load_palomar(name_or_path, **kw)
+        return load_ijac2018(name_or_path)
     raise ValueError(f"unknown dataset {name_or_path!r}")

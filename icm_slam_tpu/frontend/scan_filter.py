@@ -12,7 +12,7 @@ masked pipeline so the whole dataset filters in ONE fused XLA computation:
 
 Output is (dist, mask) of static shape — the variable-length ``zz`` array of
 the reference becomes a boolean mask, which is what lets every later stage
-(association, potentials) batch over frames on the MXU.
+(association, potentials) batch over frames on the device.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Bounded landmark table: association, incremental updates, prune/merge.
 
-TPU-native redesign of the reference's Mapa class (ICM_SLAM.py:104-265):
+Fixed-shape redesign of the reference's Mapa class (ICM_SLAM.py:104-265):
 
 * the table is a fixed (L, 2) array + (L,) observation counts + a live-count
   scalar — no dynamic growth; dead slots are masked.
@@ -165,8 +165,8 @@ def filter_map(state: MapState, cota, dist_thr, live_cap: int = 0
     L.  EXACT when the kept-landmark count <= live_cap; the kept count
     is bounded by total_obs / cota, the same provable bound run() uses
     to enable map_run_cap (solver.icm.resolve_config), so callers pass
-    config.map_run_cap (0 when disabled).  Cut filter cost ~4x at
-    L=1024 / cap=256 (the L-step relabel scan is latency-bound on TPU).
+    config.map_run_cap (0 when disabled).  The L-step relabel scan
+    is latency-bound, so the cap-sized slice shortens it L/cap-fold.
     """
     L = state.pos.shape[0]
     K = live_cap if 0 < live_cap < L else L
@@ -175,8 +175,7 @@ def filter_map(state: MapState, cota, dist_thr, live_cap: int = 0
     keep = live & (state.counts >= cota)
     # stable compaction: kept landmarks first, original order preserved.
     # cumsum target + drop-mode scatter, not an L-element argsort (a
-    # bitonic sort is ~log^2 L sequential rounds on TPU for the same
-    # result)
+    # sort takes ~log^2 L sequential rounds for the same result)
     tgt = jnp.where(keep, jnp.cumsum(keep) - 1, K)
     pos = jnp.zeros((K, 2), state.pos.dtype).at[tgt].set(
         state.pos, mode="drop")

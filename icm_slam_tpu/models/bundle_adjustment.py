@@ -10,7 +10,7 @@ energy
 JOINTLY over all poses x (T,3) and landmarks y (L,2) with Gauss-Newton —
 quadratic convergence near the fixed point instead of ICM's linear sweeps.
 
-TPU-native structure (the BASELINE "distributed BA via Schur-complement
+Accelerator structure (the BASELINE "distributed BA via Schur-complement
 reduction" design):
 
 * associations are frozen per outer iteration (same batched labels as the

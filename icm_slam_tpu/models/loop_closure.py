@@ -197,7 +197,7 @@ def close_loops(data: SweepData, x, config, closures: Optional[LoopClosures]
     closure edges use the ICP-estimated relatives.  Returns (x_corrected,
     closures of the final round).
 
-    **Regime guard** (VERDICT r3 #4): correction is applied only when the
+    **Regime guard**: correction is applied only when the
     estimated correctable drift ``max(d_x, odo_drift_frac * d_odo)``
     (see `estimate_correctable_drift`) exceeds
     ``max(min_drift, drift_gate_rms * median closure RMS)`` — the latter
@@ -205,7 +205,7 @@ def close_loops(data: SweepData, x, config, closures: Optional[LoopClosures]
     ~0.21 m at ~0.06 m closure RMS on the drifted worlds).  Below the gate
     the graph solve would *substitute* its noisier reconstruction for an
     already-better estimate (measured: 0.064 m ICM ATE regressed to
-    0.21-0.26 m, docs/RESULTS.md) — so the round no-ops.  Both regimes
+    0.21-0.26 m) — so the round no-ops.  Both regimes
     were measured to calibrate the defaults: skip at d_odo 0.28 m /
     ICM 0.064 m, apply at d_odo 1.40 m / ICM 0.506 m (2.3x gain).
     ``min_drift=0`` disables the guard.  Pass a dict as ``report`` to

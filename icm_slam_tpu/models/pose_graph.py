@@ -1,9 +1,9 @@
-"""SE(2) pose-graph optimization with loop closures (TPU-native).
+"""SE(2) pose-graph optimization with loop closures.
 
 A second backend family beyond the ICM coordinate-descent solver (BASELINE
 config 4: "pose-graph backend with loop closures on synthetic long-loop 2D
 trajectories").  The reference has no counterpart — its MRF is solved only
-by per-pose sweeps — so this is a from-scratch TPU design:
+by per-pose sweeps — so this is a from-scratch accelerator design:
 
 * the graph is a fixed-shape edge list (i, j, rel SE(2) measurement, weight);
 * Gauss-Newton outer iterations; the normal system H dx = -g is solved

@@ -6,7 +6,7 @@ program; `parallel.mesh.make_mesh()` over `jax.devices()` spans the full
 slice and the GSPMD-sharded sweeps communicate over ICI/DCN automatically.
 
 The reference's only "distribution" was a websocket to a ROS network
-(SURVEY.md §2.3); there is no counterpart — this is the TPU-native scaling
+(SURVEY.md §2.3); there is no counterpart — this is the engine's own scaling
 path (BASELINE config 5: multi-host partitioned map / distributed BA).
 """
 from __future__ import annotations

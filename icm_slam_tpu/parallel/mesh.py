@@ -166,3 +166,44 @@ def shard_sweep_inputs(mesh: Mesh, data, x, pad_to=None):
         u=put_time_sharded(mesh, data.u))
     x = put_time_sharded(mesh, x)
     return data, x, T
+
+
+def time_sharded_refine_step(mesh: Mesh, config, true_T: int):
+    """One jitted batched refine sweep + map filter on ``mesh``: poses
+    sharded along time, the filtered map replicated.  ``true_T`` is the
+    trajectory's real length (``shard_sweep_inputs`` pads T)."""
+    from icm_slam_tpu.core.energy import weights
+    from icm_slam_tpu.mapping.landmark_map import filter_map
+    from icm_slam_tpu.solver.sweeps import refine_sweep_batched
+
+    ts, rep = time_sharding(mesh), replicated(mesh)
+    w = weights(config)
+
+    @jax.jit
+    def step(data, old_map, x):
+        state, x = refine_sweep_batched(data, old_map, x, config, w,
+                                        last_t=true_T - 1)
+        x = jax.lax.with_sharding_constraint(x, ts)
+        fm = filter_map(state, config.cota, config.dist_thr)
+        fm = jax.tree.map(
+            lambda a: jax.lax.with_sharding_constraint(a, rep), fm)
+        return fm, x
+
+    return step
+
+
+def sharded_vs_one_device(devices, n_devices: int, config, data, old_map, x):
+    """One refine step time-sharded over ``n_devices`` and the SAME padded
+    step on a 1-device mesh.  Returns ``((map, poses), (map, poses))`` —
+    sharded first — with the poses cut back to the real T, as numpy."""
+    out = []
+    for n in (n_devices, 1):
+        mesh = make_mesh(devices, n)
+        data_s, x_s, true_T = shard_sweep_inputs(mesh, data, x,
+                                                 pad_to=n_devices)
+        map_s = jax.device_put(old_map, replicated(mesh))
+        fm, x_out = time_sharded_refine_step(mesh, config, true_T)(
+            data_s, map_s, x_s)
+        out.append((jax.tree.map(np.asarray, fm),
+                    np.asarray(x_out)[:true_T]))
+    return out[0], out[1]

@@ -2,13 +2,13 @@
 
 The reference has no parallelism at all (single Python thread); SURVEY
 marks PP "optional: pipeline scan-filter → association → optimize stages
-across cores".  This module is the TPU-native realization: a GPipe-style
+across cores".  This module is its realization: a GPipe-style
 software pipeline where each device of a 1-D ``stage`` mesh axis owns one
 processing stage, microbatches (chunks of frames) ride a ``ppermute`` ring
 through the stages, and ``lax.switch`` dispatches each device's resident
 stage function — the standard XLA-collective pipeline pattern, no NCCL/MPI.
 
-Honest engineering note (docs/RESULTS.md): for THIS workload the barrier-
+Honest engineering note: for THIS workload the barrier-
 free decomposition is data/sequence parallelism over the time axis
 (`parallel/mesh.py`) — every stage of the ICM sweep is already a batched
 op over frames, so PP buys nothing on a homogeneous slice.  PP exists

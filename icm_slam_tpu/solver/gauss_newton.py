@@ -1,15 +1,18 @@
 """Levenberg-Marquardt minimizer for small per-pose problems.
 
 Replaces the reference's per-pose Nelder-Mead simplex (scipy fmin, xtol=1e-3;
-ICM_ROS.py:217,259) with a damped Gauss-Newton iteration — the TPU-native
-choice: fixed iteration count, fully batchable with vmap over thousands of
-poses, and it converges far tighter than the simplex on these near-quadratic
-3-dof costs (only the heading enters nonlinearly).
+ICM_ROS.py:217,259) with a damped Gauss-Newton iteration — the
+accelerator-friendly choice: fixed iteration count, fully batchable with
+vmap over thousands of poses, and it converges far tighter than the
+simplex on these near-quadratic 3-dof costs (only the heading enters
+nonlinearly).
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _solve3(A, rhs):
@@ -45,10 +48,10 @@ def lm_minimize(resid_fn, x0, iters=12, lam0=1e-4, lam_down=0.25,
     (Marquardt diagonal scaling) with accept/reject via jnp.where —
     compiles to a single fused loop, vmappable over batches of problems.
     jac_fn: optional analytic Jacobian x -> (m, n); default jacfwd.
-    closed_form: use the cofactor 3x3 solve for n == 3.  MEASURED: a big
-    win inside vmapped batches (refine sweep 21 -> 13 ms/iter — the LU
-    pipeline cost ~40%) but a small LOSS inside sequential lax.scan bodies
-    (causal init 0.22 -> 0.35 s) — scan callers pass False.
+    closed_form: use the cofactor 3x3 solve for n == 3 (one fused step
+    instead of an LU pipeline of several kernels inside vmapped batches);
+    sequential lax.scan bodies pass False.  Neither choice is measured on
+    the GPU yet.
     """
     n = x0.shape[0]
     eye = jnp.eye(n, dtype=x0.dtype)
@@ -62,8 +65,11 @@ def lm_minimize(resid_fn, x0, iters=12, lam0=1e-4, lam_down=0.25,
     def step(carry, _):
         x, lam, fx, r = carry
         J = jac_fn(x)
-        g = J.T @ r
-        H = J.T @ J
+        # HIGHEST: at default precision a GPU may run these float32 dots
+        # (hundreds of beam terms each) in TF32, which moves the solved
+        # poses by millimetres
+        g = jnp.matmul(J.T, r, precision=_HIGHEST)
+        H = jnp.matmul(J.T, J, precision=_HIGHEST)
         damp = jnp.diag(jnp.maximum(jnp.diag(H), 1e-12))
         A = H + lam * damp + 1e-12 * eye
         delta = (_solve3(A, -g) if closed_form and n == 3
@@ -78,9 +84,8 @@ def lm_minimize(resid_fn, x0, iters=12, lam0=1e-4, lam_down=0.25,
         lam = jnp.where(better, lam * lam_down, lam * lam_up)
         return (x, lam, fx, r), None
 
-    # NOTE: unroll=True was measured a net loss — the fused sweep jit's
-    # compile blows up (CPU suite 245 s -> >420 s; remote TPU compile
-    # minutes) for no observed step-time win; keep the rolled scan.
+    # NOTE: unroll=True blows up the fused sweep jit's compile time (the
+    # CPU suite went from 245 s to over 420 s); keep the rolled scan.
     r0 = resid_fn(x0)
     (x, _, _, _), _ = jax.lax.scan(
         step, (x0, jnp.asarray(lam0, x0.dtype), jnp.sum(r0 * r0), r0),

@@ -12,7 +12,7 @@ Three sweeps over the trajectory:
   full pose array.  This mode exists for fidelity validation (matches the
   oracle's update order exactly).
 
-* ``refine_sweep_batched`` — the TPU-native mode.  Key observations about the
+* ``refine_sweep_batched`` — the parallel mode.  Key observations about the
   reference semantics that make it parallel:
     - association at frame t uses the STALE pose x[t] and the FROZEN previous
       map (ICM_ROS.py:149-150) -> all T associations batch into one masked
@@ -42,6 +42,11 @@ from icm_slam_tpu.core.geometry import beams_to_world
 from icm_slam_tpu.mapping.landmark_map import (MapState, associate, update)
 from icm_slam_tpu.solver.gauss_newton import lm_minimize
 
+# a chunk of the batched init has settled when a Picard round changes no
+# label and, in this round and the last, no pose coordinate by more than
+# this (m, rad)
+PICARD_TOL = 1e-5
+
 
 def _model_of(config):
     """Resolve the (possibly user-supplied) EnergyModel for a config."""
@@ -52,9 +57,8 @@ def _jacs_of(config):
     """Jacobian choice for the LM solves.
 
     Analytic Jacobians (core.energy.one/two_sided_jacobian) are exact and
-    validated, but MEASURED SLOWER than jacfwd on TPU: XLA evaluates the
-    3-tangent JVP batch in one fused pass, while the hand-built J stacks
-    many small ops per LM step (70.9 vs 66.0 ms/iter on the full sweep).
+    validated, but XLA evaluates the 3-tangent JVP batch of jacfwd in one
+    fused pass, while the hand-built J stacks many small ops per LM step.
     jacfwd (None) is therefore the default; flip here to experiment.
     """
     return None, None
@@ -113,8 +117,8 @@ def _causal_step(data: SweepData, config, w):
         if cap and cap < mask_t.shape[0]:
             # gather the few valid beams for the pose solve (exact when
             # cap >= the frame's valid count — see auto_obs_cap).
-            # cumsum-scatter instead of argsort: sorts inside a scan body
-            # compile pathologically on TPU.
+            # cumsum-scatter instead of argsort: no sort inside the
+            # scan body.
             B = mask_t.shape[0]
             rank = jnp.cumsum(mask_t) - 1
             tgt = jnp.where(mask_t & (rank < cap), rank, cap)
@@ -176,7 +180,7 @@ def init_sweep(data: SweepData, seed: MapState, x0, config, w
 
 
 # ---------------------------------------------------------------------------
-# batched (Picard) init sweep — TPU-native ICM iteration 0
+# batched (Picard) init sweep — parallel ICM iteration 0
 # ---------------------------------------------------------------------------
 
 def resolve_init_merge_cap(config) -> int:
@@ -202,8 +206,8 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
     state.nact at <= L, so only the raw count can witness table overflow).
 
     The sequential init is a T-step lax.scan whose per-step LM solve
-    dominates wall time (measured: 270 ms for T=1833 on TPU v5e, ~85% in
-    the LM iterations — a sequential chain of ~15k tiny kernels).  The
+    dominates wall time (a sequential chain of ~15k tiny kernels at
+    T=1833).  The
     causal drift-correction the init performs cannot be globally batched
     (a pose correction at frame t propagates forward through the
     kinematic/odometry chain, one frame per Jacobi round — a pure global
@@ -214,7 +218,8 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
       the lax.scan runs over ~T/C chunks instead of T frames, carrying the
       landmark table (weighted sums + counts + live count) and the last
       pose — causality across chunks is exact;
-    * within a chunk, ``init_rounds`` Picard rounds run fully batched:
+    * within a chunk, Picard rounds run fully batched until the chunk
+      settles (``PICARD_TOL``), at most C of them:
       predictions from the previous round's poses, causal association of
       all C frames at once (exclusive cumulative segment-sums over the
       carried table + the chunk's own labels reproduce the reference's
@@ -225,11 +230,11 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
       and an exact dead-reckon fill of empty-frame gaps via parallel
       cumulative sums.
 
-    Within-chunk drift (<= C frames from a converged anchor pose) is small,
-    so 2 rounds converge (the validated default; R=3 measured no better
-    refined ATE on either dataset at either profile); parity with the
-    oracle init is at the ATE level, like every engine-vs-oracle
-    comparison (see tests/test_e2e.py).
+    The chain is causal, so round k fixes frame k: C rounds reproduce the
+    sequential init.  A fixed round count below C is not enough where new
+    landmarks start often: on the seeded reference-shape world, 2 rounds
+    of C=32 left the sequential init by a mean 0.34 m.  The early stop
+    keeps the common chunk to a few rounds.
 
     Requires the default unicycle kinematics (the dead-reckon fill encodes
     them) and the replicate_new_obs quirk; ``_init_jit`` falls back to the
@@ -248,7 +253,6 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
     model = _model_of(config)
     deltat = config.deltat
     C = max(2, int(config.init_chunk_len))
-    R = max(1, int(config.init_rounds))
     jac1, _ = _jacs_of(config)
     z3 = jnp.zeros((3,), dtype)
     z2 = jnp.zeros((2,), dtype)
@@ -273,9 +277,9 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
     if 0 < C * B * (L + 1) <= config.assoc_onehot_max_elems:
         # one-hot matmul per chunk: the init is latency-bound (a ~T/C-step
         # sequential scan of small ops), so collapsing 3 vmapped scatter
-        # segment-sums into one MXU contraction shortens each round's
-        # dependency chain; HIGHEST keeps f32 coordinates exact (TPU
-        # default matmul precision is bf16 inputs)
+        # segment-sums into one contraction shortens each round's
+        # dependency chain; HIGHEST keeps f32 coordinates exact (a
+        # reduced-precision matmul would round them to bf16 or TF32)
         def batched_frame_sums(px, py, l, wi):
             lc = jnp.minimum(l, L)
             oh = (lc[..., None] == jnp.arange(L + 1)).astype(dtype)
@@ -447,16 +451,32 @@ def init_sweep_batched(data: SweepData, seed: MapState, x0, config, w
         # increment: stale prev = identity-at-origin, pose = (rel, dth)
         x0p = jnp.zeros((C, 3), dtype)
         x = rechain(jnp.concatenate([rel0, dth0[:, None]], axis=1), x0p)
-        lab = jnp.full((C, B), L, jnp.int32)
-        pts_prev = jnp.zeros((C, B, 2), dtype)
-        for ridx in range(R):
+
+        def picard_round(st):
+            r, x, pts_prev, lab, dx_last, _, n_new, fx, fy, fc = st
             x_prev_arr = jnp.concatenate([x_last[None], x[:-1]], 0)
             xp = model.kinematics(x_prev_arr, u_prev_c, deltat)
             pts = beams_to_world(xp, dist_c, ang_c)
-            lab, n_new, matched, fx, fy, fc = assoc_pass(
+            lab_new, n_new, matched, fx, fy, fc = assoc_pass(
                 pts, pts_prev, lab)
-            pts_prev = pts
-            x = solve_round(x_prev_arr, xp, matched)
+            x_new = solve_round(x_prev_arr, xp, matched)
+            dx = jnp.max(jnp.abs(x_new - x))
+            # the round's whole input (poses, the previous round's points
+            # and labels) repeats: the fixed point, which the causal
+            # chain makes unique and equal to the sequential init's
+            settled = (jnp.all(lab_new == lab)
+                       & (jnp.maximum(dx, dx_last) <= PICARD_TOL))
+            return (r + 1, x_new, pts, lab_new, dx, settled, n_new,
+                    fx, fy, fc)
+
+        # round k settles frame k of the chunk, so C rounds reproduce the
+        # sequential init; most chunks reach the fixed point sooner
+        zl = jnp.zeros((L,), dtype)
+        st = (jnp.int32(0), x, jnp.zeros((C, B, 2), dtype),
+              jnp.full((C, B), L, jnp.int32), jnp.asarray(jnp.inf, dtype),
+              jnp.asarray(False), jnp.int32(0), zl, zl, zl)
+        _, x, pts_prev, lab, _, _, n_new, fx, fy, fc = jax.lax.while_loop(
+            lambda s: (s[0] < C) & ~s[5], picard_round, st)
 
         if config.init_final_assoc:
             # final map-build with the CONVERGED poses (no solves): the
@@ -596,7 +616,7 @@ def refine_sweep_sequential(data: SweepData, old_map: MapState, x, config, w
 
 
 # ---------------------------------------------------------------------------
-# batched refinement sweep (TPU-native mode)
+# batched refinement sweep (parallel mode)
 # ---------------------------------------------------------------------------
 
 def batched_associate(data: SweepData, old_map: MapState, x, config):
@@ -622,40 +642,14 @@ def batched_associate(data: SweepData, old_map: MapState, x, config):
 
     pts = beams_to_world(x, data.dist, data.ang)            # (T, B, 2)
 
-    # one-kernel association + old-landmark sums (opt-in, see
-    # ops/assoc_sums_pallas.py): only on the capped quirk path, where the
-    # kernel's (T, 3, cap) sums drop straight into the running-mean
-    # prefix sums below
-    fused_sums = None
-    if (config.use_pallas_fused_assoc and config.replicate_new_obs_quirk
-            and Lr < L and Lr % 128 == 0):
-        from icm_slam_tpu.ops.assoc_sums_pallas import associate_and_sums
-        lab_n, d2min, fused_sums = associate_and_sums(
-            pts, ref_pos, data.mask, old_map.nact, float(dist_thr),
-            interpret=jax.default_backend() != "tpu")
-        fused_sums = fused_sums.astype(dtype)
-        # d^2-form gate (borderline beams may differ from the sqrt path
-        # at f32 rounding — documented in the kernel header)
-        lab = jnp.where(d2min > dist_thr * dist_thr, -1, lab_n)
-        lab = jnp.where(data.mask, lab, L)                   # (T, B)
-    elif config.use_pallas_assoc and Lr % 256 == 0:
-        from icm_slam_tpu.ops.assoc_pallas import nearest_landmark
-        # Mosaic compiles only for TPU; elsewhere the opt-in still honors
-        # the kernel contract through the (slow) interpreter.
-        nearest_lab, min_dist = nearest_landmark(
-            pts, ref_pos, old_map.nact,
-            interpret=jax.default_backend() != "tpu")
-        lab = jnp.where(min_dist > dist_thr, -1, nearest_lab)
-        lab = jnp.where(data.mask, lab, L)                   # (T, B)
-    else:
-        ref_live = jnp.arange(Lr) < old_map.nact
-        lab, _ = jax.vmap(
-            lambda p, m: associate(ref_pos, ref_live, p, m, dist_thr)
-        )(pts, data.mask)                                    # (T, B)
-        if Lr < L:
-            # associate() marks masked-out beams with its own column count;
-            # restore the full-table discard sentinel
-            lab = jnp.where(lab == Lr, L, lab)
+    ref_live = jnp.arange(Lr) < old_map.nact
+    lab, _ = jax.vmap(
+        lambda p, m: associate(ref_pos, ref_live, p, m, dist_thr)
+    )(pts, data.mask)                                        # (T, B)
+    if Lr < L:
+        # associate() marks masked-out beams with its own column count;
+        # restore the full-table discard sentinel
+        lab = jnp.where(lab == Lr, L, lab)
 
     far = lab == -1
     if config.replicate_new_obs_quirk:
@@ -683,41 +677,32 @@ def batched_associate(data: SweepData, old_map: MapState, x, config):
 
             lab_old = jnp.where(far | (lab >= cap_l), cap_l, lab)
 
-            if fused_sums is not None:
-                # the kernel already produced the per-frame old-landmark
-                # sums with the identical weight (valid & within gate)
-                sums = fused_sums                            # (T, 3, cap_l)
-            elif T * B * (cap_l + 1) <= config.assoc_onehot_max_elems:
+            if T * B * (cap_l + 1) <= config.assoc_onehot_max_elems:
                 # one-hot matmul instead of 3 vmapped scatter segment-sums:
-                # the (B, cap+1) one-hot product rides the MXU in one fused
-                # batched contraction, while scatter-add serializes
-                # duplicate indices (ABLATION-measured: the assoc+map block
-                # dominates the sweep once solves/filter are cheap;
-                # 5.4 -> 4.3 ms/iter at reference scale).  Size-gated: the
-                # materialized (T, B, cap+1) one-hot is HBM-bandwidth
-                # poison at stress scale (20k frames timed out), where the
-                # scatters win.
+                # one fused batched contraction, where scatter-add
+                # serializes duplicate indices.  Size-gated: the
+                # materialized (T, B, cap+1) one-hot is too large at the
+                # 20k-frame stress scale, where the chunked path below
+                # takes over.
                 oh = (lab_old[..., None] ==
                       jnp.arange(cap_l + 1)).astype(dtype)   # (T, B, cap+1)
                 vals = jnp.stack([pts[..., 0] * w, pts[..., 1] * w, w],
                                  axis=-1)                    # (T, B, 3)
-                # HIGHEST: TPU's default matmul precision is bf16 inputs,
-                # which would quantize landmark coordinates to ~3 digits;
-                # with exact 0/1 one-hots full f32 keeps each product exact
+                # HIGHEST: a reduced-precision matmul (bf16 or TF32 inputs)
+                # would quantize landmark coordinates to ~3 digits; with
+                # exact 0/1 one-hots full f32 keeps each product exact
                 sums = jnp.einsum('tbc,tbv->tvc', oh, vals,
                                   precision=jax.lax.Precision.HIGHEST)
                 sums = sums[:, :, :cap_l]                    # (T, 3, cap_l)
             else:
                 # CHUNKED one-hot einsum: past the one-shot gate (e.g. the
                 # 20k-frame stress world) the materialized (T, B, cap+1)
-                # one-hot is HBM poison, but each frame's sums only need its
+                # one-hot is too large, but each frame's sums only need its
                 # OWN chunk — so a lax.map over ceil(T/Tc) chunks keeps the
-                # MXU contraction (exact: every frame lies entirely inside
-                # one chunk, so per-frame sums are bitwise-identical to the
-                # one-shot einsum) while materializing one chunk's one-hot
-                # at a time under the same element budget.  Replaces 3
-                # vmapped scatter segment-sums, which serialize duplicate
-                # indices per frame on TPU.
+                # matmul contraction (exact: every frame lies entirely
+                # inside one chunk, so per-frame sums are bitwise-identical
+                # to the one-shot einsum) while materializing one chunk's
+                # one-hot at a time under the same element budget.
                 Tc = max(1, config.assoc_onehot_max_elems
                          // (B * (cap_l + 1)))
                 Tc = min(Tc, T)
@@ -746,8 +731,7 @@ def batched_associate(data: SweepData, old_map: MapState, x, config):
             # one fused (T, 3, cap) prefix sum instead of three (T, cap)
             # ones — the running means are per-plane prefix sums either
             # way (bitwise-identical), this just cuts op count in the
-            # latency-bound sweep body.  Layout stays lane-friendly:
-            # cap_l (a 128-multiple) rides the lane axis.
+            # latency-bound sweep body.
             cums = jnp.cumsum(sums, axis=0)                  # (T, 3, cap_l)
             cum_cnt = cums[:, 2]
             denom = jnp.maximum(cum_cnt, 1.0)
@@ -795,9 +779,8 @@ def batched_associate(data: SweepData, old_map: MapState, x, config):
     # --- running-mean map via cumulative segment sums -----------------------
     w = (lab < L).astype(dtype)                               # (T, B)
 
-    # per-frame segment sums as SEPARATE x/y (T, L) planes: a trailing
-    # size-2 axis would land on the 128-lane dimension and pad 64x
-    # (f32[T,1024,2]{T(8,128)} cost ~10 GB at T=20k before this split)
+    # per-frame segment sums as SEPARATE x/y (T, L) planes, not one
+    # (T, L, 2) array with a trailing size-2 axis
     def frame_sums(px, py, l, wi):
         sx = jax.ops.segment_sum(px * wi, l, num_segments=L + 1)[:L]
         sy = jax.ops.segment_sum(py * wi, l, num_segments=L + 1)[:L]
@@ -940,7 +923,7 @@ def _solve_one_at(data: SweepData, x, obs, config, w, t):
 def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
                          last_t: int | None = None
                          ) -> Tuple[MapState, jnp.ndarray]:
-    """One TPU-parallel ICM sweep: batched association + red-black poses.
+    """One parallel ICM sweep: batched association + red-black poses.
 
     ``last_t``: index of the last REAL frame (defaults to T-1).  When the
     time axis is padded up to the mesh size, frames past last_t are
@@ -959,7 +942,9 @@ def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
     else:
         data_c = data._replace(ang=jnp.broadcast_to(data.ang,
                                                     data.dist.shape))
-    _, final_map, matched = batched_associate(data_c, old_map, x, config)
+    # named scopes label the sweep's layers in profiler traces
+    with jax.named_scope("association"):
+        _, final_map, matched = batched_associate(data_c, old_map, x, config)
     obs = (data_c.dist, data_c.ang, data_c.mask, matched)
 
     # fold the last frame's one-sided solve into the vmapped batch when the
@@ -999,18 +984,17 @@ def refine_sweep_batched(data: SweepData, old_map: MapState, x, config, w,
         cand = jnp.where(keep, cand, x[ts])
         return x.at[ts].set(cand)
 
-    if config.pose_update == "jacobi":
-        # one full Jacobi pass per pose_pass: every pose solved against the
-        # PREVIOUS pass's neighbours — half the sequential LM depth of a
-        # red-black pair, but each step solves all T poses where a
-        # half-pass solves T/2, and the round-4 on-chip A/B measured that
-        # trade a net LOSS (418.6k vs red-black's 472.5k f/s at gn=6 —
-        # docs/RESULTS.md).  Kept as an opt-in fixed-point variant
-        # (0/10 OOD fuzz divergences), not a speed knob.
-        for _ in range(config.pose_passes):
-            x = solve_at(x, jnp.arange(1, T))
-    else:
-        for _ in range(config.pose_passes):
-            x = solve_at(x, jnp.arange(1, T, 2), parity=1)
-            x = solve_at(x, jnp.arange(2, T, 2), parity=0)
+    with jax.named_scope("pose_solve"):
+        if config.pose_update == "jacobi":
+            # one full Jacobi pass per pose_pass: every pose solved against
+            # the PREVIOUS pass's neighbours — half the sequential LM depth
+            # of a red-black pair, but each step solves all T poses where a
+            # half-pass solves T/2.  An opt-in fixed-point variant, not a
+            # speed knob; its speed on the GPU is not measured.
+            for _ in range(config.pose_passes):
+                x = solve_at(x, jnp.arange(1, T))
+        else:
+            for _ in range(config.pose_passes):
+                x = solve_at(x, jnp.arange(1, T, 2), parity=1)
+                x = solve_at(x, jnp.arange(2, T, 2), parity=0)
     return final_map, x

@@ -12,7 +12,7 @@ from typing import Dict
 
 @contextlib.contextmanager
 def device_trace(logdir: str):
-    """Capture an XLA/TPU profiler trace viewable in TensorBoard/Perfetto."""
+    """Capture an XLA profiler trace viewable in TensorBoard/Perfetto."""
     import jax
     jax.profiler.start_trace(logdir)
     try:

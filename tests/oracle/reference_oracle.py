@@ -3,7 +3,7 @@
 This module re-derives, from first principles, the *behavior* of the reference
 implementation (studied at /root/reference; normative files per SURVEY.md §7.3:
 ``scripts/ICM_ROS.py`` + ``scripts/ICM_SLAM.py``).  It exists purely as a test
-fixture: it generates "golden" trajectories/maps that the TPU-native engine is
+fixture: it generates "golden" trajectories/maps that the engine is
 validated against (ATE-level agreement, not bitwise).
 
 It is intentionally NumPy/SciPy-only and sequential — a faithful executable
@@ -351,7 +351,11 @@ class OracleICM:
         for t in range(1, Tf):
             z = self._filtered[t]
             if z.shape[0] == 0:
-                xt = (np.asarray(xt).reshape(3) + x[:, t + 1]) / 2.0
+                # an empty LAST frame makes the reference index past the
+                # trajectory and crash (ICM_ROS.py:144); like the engine's
+                # sequential sweep, average with the frame's own pose there
+                x_next = x[:, min(t + 1, Tf - 1)]
+                xt = (np.asarray(xt).reshape(3) + x_next) / 2.0
                 x[:, t] = xt
                 continue
             y, c = self.map.update(y, old_map, body_to_world(x[:, t], z))

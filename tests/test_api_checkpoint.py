@@ -1,7 +1,7 @@
 """run_offline checkpoint/resume on the segmented FUSED refinement loop.
 
-VERDICT r3 weak #6: attaching a checkpoint observer used to force the
-unfused per-iteration dispatch path (~13% tax at the fast profile).  Now a
+Attaching a checkpoint observer used to force the unfused
+per-iteration dispatch path (one host dispatch per sweep).  Now a
 checkpoint-only run executes ceil(N/K) fused device programs and
 checkpoints at segment boundaries; these tests pin the contract:
 

@@ -1,7 +1,7 @@
 """Fleet mode: run_batched == per-world run(), as one device program.
 
-The roofline analysis (docs/RESULTS.md) shows a single run is
-latency-bound; run_batched fills the idle chip with W independent worlds.
+A single run is latency-bound and leaves the device idle much of the
+time; run_batched fills it with W independent worlds.
 Correctness contract: per-world results are bitwise-equal to run() on CPU
 (the vmapped program executes the same ops per lane).
 """

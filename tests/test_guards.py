@@ -1,4 +1,4 @@
-"""Guards against the silent-wrongness modes (VERDICT round-1 item 4).
+"""Guards against the silent-wrongness modes.
 
 Three preconditions of the fast batched paths are now checked instead of
 assumed:
@@ -82,19 +82,6 @@ def test_map_run_cap_shrinks_to_bound_and_stays_exact():
                                   np.asarray(m_b.pos[:128]))
 
 
-def test_map_run_cap_shrink_keeps_pallas_alignment():
-    # the opt-in Pallas association kernel tiles reference columns in 256s
-    # (ops/assoc_pallas.py CHUNK_L; sweeps.py only dispatches when the
-    # width is a 256-multiple) — with use_pallas_assoc the shrink must not
-    # produce a 128 cap that would silently drop the requested kernel
-    ds = synthetic_world(T=300, n_landmarks=20, seed=3)
-    cfg = ICMConfig(N=1, L=512, cota=40.0, map_run_cap=512,
-                    use_pallas_assoc=True)
-    data = prepare(ds, cfg)
-    out = resolve_config(cfg, data)
-    assert out.map_run_cap % 256 == 0 and out.map_run_cap == 256
-
-
 def test_checked_cap_kept_and_verified():
     # map_run_cap_checked keeps the cap even when the cota bound is loose,
     # runs the fast cap-sliced paths, and the per-sweep witness proves the
@@ -125,7 +112,8 @@ def test_checked_cap_violation_raises():
     from icm_slam_tpu.solver.icm import run as icm_run
 
     ds = synthetic_world(T=300, n_landmarks=60, world_size=60.0, seed=8)
-    cfg = ICMConfig(N=1, L=512, cota=1.0, map_run_cap=16,
+    # (13 landmarks survive on it, against the cap's 8)
+    cfg = ICMConfig(N=1, L=512, cota=1.0, map_run_cap=8,
                     map_run_cap_checked=True)
     with pytest.raises(RuntimeError, match="map_run_cap violated"):
         icm_run(ds, cfg)
@@ -161,7 +149,7 @@ def test_sequential_empty_frame0_returns_inputs_unchanged():
 
 
 def test_padded_empty_last_frame_not_pulled_to_origin():
-    # ADVICE round-1: on a padded time axis an empty last REAL frame must
+    # on a padded time axis an empty last REAL frame must
     # average with a clamped neighbour, never with the zero-padded pose
     from icm_slam_tpu.core.energy import weights
     from icm_slam_tpu.solver.icm import seed_map
@@ -199,7 +187,7 @@ def test_run_detects_table_overflow():
 
 
 def test_init_overflow_detected_on_batched_path():
-    # ADVICE round-2 (medium): the batched init merges its table in-function
+    # the batched init merges its table in-function
     # (nact compacted to <= L), so the overflow witness must come from the
     # RAW allocated-label count — with zero refinement iterations only the
     # init-sweep check can fire, proving the batched path's raw witness
@@ -215,7 +203,7 @@ def test_assoc_onehot_and_scatter_paths_agree():
     """The one-hot-matmul running-mean build == the scatter segment-sums.
 
     batched_associate picks between them by assoc_onehot_max_elems (a pure
-    latency/bandwidth trade, docs/RESULTS.md); both must produce the same
+    latency/bandwidth trade); both must produce the same
     sweep.  Counts are integral sums of 0/1 weights (exact in f32 either
     way); positions may differ by accumulation order only.
     """
@@ -283,7 +271,7 @@ def test_init_merge_cap_exact_and_witnessed():
 
 
 def test_map_change_empty_maps_yield_zeros_not_nan():
-    # VERDICT r3 weak #5: an empty map (either side) used to NaN-poison the
+    # an empty map (either side) used to NaN-poison the
     # convergence metrics via nanmin over an all-NaN slice
     from icm_slam_tpu.mapping.landmark_map import MapState, empty_map
     from icm_slam_tpu.solver.icm import map_change
@@ -316,12 +304,12 @@ def test_degenerate_world_run_keeps_finite_metrics():
     assert np.all(np.isfinite(np.asarray(res.changes)))
 
 
-def test_obs_cap_validated_in_every_mode(ijac):
+def test_obs_cap_validated_in_every_mode(seeded_reference_world):
     """Beam compaction also runs in the init sweeps, so a too-small user
     obs_cap must raise even when sweep_mode is sequential (round-4 review:
     the guard used to be keyed on the batched sweep modes only)."""
     from icm_slam_tpu.solver.icm import prepare, resolve_config
-    ds = ijac.slice(50)
+    ds = seeded_reference_world.slice(50)
     cfg = ICMConfig(N=1, L=64, sweep_mode="sequential", obs_cap=2,
                     dtype="float32")
     data = prepare(ds, cfg)

@@ -108,7 +108,7 @@ def test_iterated_rounds_on_real_drift():
 
 
 def test_regime_guard_noops_at_low_drift(loop_world):
-    """VERDICT r3 #4: applying closures to an already-good estimate used to
+    """Applying closures to an already-good estimate used to
     regress it (measured 0.064 -> 0.21-0.26 m) — the guard must no-op and
     report the decision instead."""
     ds, cfg, data = loop_world

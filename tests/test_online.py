@@ -9,8 +9,8 @@ from icm_slam_tpu.solver.icm import run
 
 
 @pytest.mark.parametrize("chunk", [7, 64])
-def test_online_matches_offline_init(ijac, chunk):
-    ds = ijac.slice(200)
+def test_online_matches_offline_init(seeded_reference_world, chunk):
+    ds = seeded_reference_world.slice(200)
     # the streaming engine IS the causal sequential init — compare against
     # that engine, not the offline default (batched Picard init)
     cfg = ICMConfig(N=0, L=256, dtype="float32", init_mode="sequential")
@@ -27,11 +27,11 @@ def test_online_matches_offline_init(ijac, chunk):
     np.testing.assert_allclose(r_on.map_pos, r_off.map_pos, atol=1e-3)
 
 
-def test_online_with_refinement(ijac):
+def test_online_with_refinement(seeded_reference_world):
     """finish(refine=True) CARRIES the streamed state into refinement (no
     init recompute); must land at the offline fixed point (the streamed
     init differs from run()'s only by obs-cap compaction f32 noise)."""
-    ds = ijac.slice(150)
+    ds = seeded_reference_world.slice(150)
     cfg = ICMConfig(N=1, L=256, dtype="float32", init_mode="sequential")
     eng = OnlineSLAM(cfg, chunk_size=32)
     for frame in stream_dataset(ds):

@@ -1,4 +1,4 @@
-"""Installed-package smoke test (VERDICT round-1 'packaging fragility').
+"""Installed-package smoke test.
 
 Builds/installs the package OUT of the source tree (pip --target, no deps,
 no build isolation — offline-safe) and drives a tiny end-to-end run from a

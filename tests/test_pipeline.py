@@ -34,14 +34,14 @@ def test_pipeline_stages_generic():
 
 
 @pytest.mark.parametrize("chunk", [16, 64])
-def test_pipelined_refine_matches_barrier(ijac, chunk):
+def test_pipelined_refine_matches_barrier(seeded_reference_world, chunk):
     """Pipelined 3-stage half-passes == refine_sweep_batched (exact math,
     different schedule)."""
     from icm_slam_tpu.solver.icm import (_filter_jit, _init_jit, prepare,
                                          resolve_config, seed_map)
     from icm_slam_tpu.solver.sweeps import refine_sweep_batched
 
-    ds = ijac.slice(201)
+    ds = seeded_reference_world.slice(201)
     # map_run_cap=0: this test isolates the SCHEDULE (pipeline vs barrier);
     # the cap-sliced fast paths have their own bitwise equivalence test
     # (test_guards.test_map_run_cap_shrinks_to_bound_and_stays_exact), and

@@ -1,34 +1,22 @@
-"""Full-depth profile matrix: both datasets × both throughput profiles.
+"""Full-depth profile matrix on the seeded reference-shape world.
 
 Every performance profile the benchmarks quote must hold full-run quality
 (ATE < 0.1 m vs the oracle golden, exact landmark census).  This matrix
 is the regression gate that catches profile-dependent init/sweep
 interactions — e.g. init_chunk_len=48 passed the 2-pass default but lost
-a landmark at the 1-pass fast profile (docs/RESULTS.md, chunk sweep).
+a landmark at the 1-pass fast profile on the reference's dataset.
 """
-import os
-
 import numpy as np
 import pytest
 
 from icm_slam_tpu.config import ICMConfig
 from icm_slam_tpu.solver.icm import run
 
-GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
-PALOMAR = "/root/reference/scripts/datos_palomar1.mat"
-
 PROFILES = {"fast": dict(pose_passes=1, pose_gn_iters=6),
             "default": dict(pose_passes=2, pose_gn_iters=8),
             "turbo": dict(pose_passes=1, pose_gn_iters=3),
             "ultra": dict(pose_passes=1, pose_gn_iters=2),
             "max": dict(pose_passes=1, pose_gn_iters=1)}
-
-# palomar's full-depth matrix is the expensive half; it gates the
-# engine-default and the two bench-relevant extremes in-suite — the
-# intermediate presets' palomar quality is re-measured by every driver
-# bench capture (the JSON self-reports palomar ATE) and was validated on
-# the full matrix when each preset landed (docs/RESULTS.md).
-PALOMAR_PROFILES = ("fast", "default", "max")
 
 
 def _check(res, golden):
@@ -41,50 +29,30 @@ def _check(res, golden):
 
 @pytest.mark.slow
 @pytest.mark.parametrize("profile", sorted(PROFILES))
-def test_ijac_full_depth(ijac, golden_full, profile):
-    res = run(ijac, ICMConfig(N=30, L=1024, **PROFILES[profile]))
+def test_reference_world_full_depth(seeded_reference_world, golden_full,
+                                    profile):
+    res = run(seeded_reference_world,
+              ICMConfig(N=30, L=1024, **PROFILES[profile]))
     _check(res, golden_full)
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("profile", sorted(PALOMAR_PROFILES))
-def test_palomar_full_depth(profile):
-    path = os.path.join(GOLDEN_DIR, "palomar_T1833_N30_inconsistent.npz")
-    if not (os.path.exists(path) and os.path.exists(PALOMAR)):
-        pytest.skip("palomar data/golden not present")
-    from icm_slam_tpu.data.datasets import load_palomar
-    res = run(load_palomar(PALOMAR), ICMConfig(N=30, L=1024,
-                                               **PROFILES[profile]))
-    _check(res, np.load(path))
-
-
-@pytest.mark.slow
-def test_jacobi_full_depth(ijac, golden_full):
+def test_jacobi_full_depth(seeded_reference_world, golden_full):
     """pose_update="jacobi" (one full pass per pose_pass, half the
     sequential LM depth) must hold full-run quality like every published
-    profile.  CPU-validated matrix: ijac 0.0253/0.0525, palomar
-    0.0282/0.0540 (default/fast), census 11/11 everywhere."""
-    res = run(ijac, ICMConfig(N=30, L=1024, pose_update="jacobi",
-                              **PROFILES["default"]))
+    profile."""
+    res = run(seeded_reference_world,
+              ICMConfig(N=30, L=1024, pose_update="jacobi",
+                        **PROFILES["default"]))
     _check(res, golden_full)
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("dataset", ["ijac2018", "palomar"])
-def test_init_c64_candidate_full_depth(dataset, ijac, golden_full):
-    """The round-3 lead init recipe (C=64 chunks + no-final-assoc +
-    init_gn=4, ~67% fewer sequential init steps) must hold full-run
-    quality at the FAST profile — the historical landmark-loss mode for
-    big init chunks (round-2 C=48 cliff)."""
+def test_init_c64_candidate_full_depth(seeded_reference_world, golden_full):
+    """The C=64 init recipe (C=64 chunks + no-final-assoc + init_gn=4, ~67%
+    fewer sequential init steps) must hold full-run quality at the FAST
+    profile — the historical landmark-loss mode for big init chunks."""
     kw = dict(init_chunk_len=64, init_final_assoc=False, init_gn_iters=4,
               **PROFILES["fast"])
-    if dataset == "ijac2018":
-        res = run(ijac, ICMConfig(N=30, L=1024, **kw))
-        _check(res, golden_full)
-    else:
-        path = os.path.join(GOLDEN_DIR, "palomar_T1833_N30_inconsistent.npz")
-        if not (os.path.exists(path) and os.path.exists(PALOMAR)):
-            pytest.skip("palomar data/golden not present")
-        from icm_slam_tpu.data.datasets import load_palomar
-        res = run(load_palomar(PALOMAR), ICMConfig(N=30, L=1024, **kw))
-        _check(res, np.load(path))
+    res = run(seeded_reference_world, ICMConfig(N=30, L=1024, **kw))
+    _check(res, golden_full)

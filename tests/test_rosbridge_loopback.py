@@ -2,7 +2,7 @@
 -> OnlineSLAM, end-to-end on a dataset prefix, asserting parity with the
 offline pipeline.
 
-VERDICT r3 missing #2: the websocket transport path (RosBridgeSource,
+The websocket transport path (RosBridgeSource,
 publish_to_rosbridge — the reference's PRIMARY operating mode,
 ICM_SLAM.py:276-341 / createbag.py:123-151) had never executed.  Here the
 whole chain runs in-suite over a REAL loopback TCP socket speaking the
@@ -30,14 +30,14 @@ def bridge(monkeypatch):
     server.stop()
 
 
-def test_transport_end_to_end_matches_offline(bridge, ijac):
+def test_transport_end_to_end_matches_offline(bridge, seeded_reference_world):
     from icm_slam_tpu.runtime.ingest import RosBridgeSource
     from icm_slam_tpu.runtime.online import OnlineSLAM
     from icm_slam_tpu.runtime.replay import publish_to_rosbridge
     from icm_slam_tpu.solver.icm import run
 
     T = 120
-    ds = ijac.slice(T)
+    ds = seeded_reference_world.slice(T)
     cfg = ICMConfig(N=1, L=256, dtype="float32", init_mode="sequential")
 
     src = RosBridgeSource(cfg, host=bridge.host, port=bridge.port)
@@ -114,15 +114,15 @@ def test_transport_end_to_end_matches_offline(bridge, ijac):
     assert res.map_pos.shape == ref.map_pos.shape
 
 
-def test_cli_online_against_loopback(bridge, ijac, tmp_path):
+def test_cli_online_against_loopback(bridge, seeded_reference_world, tmp_path):
     """`icm-slam-tpu online` end-to-end: the reference's example.py
     workflow (live capture -> service stop -> refine -> outputs) driven
     through the CLI against the loopback bridge."""
     from icm_slam_tpu import cli
     from icm_slam_tpu.runtime.replay import publish_to_rosbridge
 
-    T = 80
-    ds = ijac.slice(T)
+    T = 160
+    ds = seeded_reference_world.slice(T)
     cfg = ICMConfig()          # default topics — the CLI uses the same
     out = tmp_path / "online.npz"
 

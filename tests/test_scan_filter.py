@@ -20,11 +20,13 @@ def test_median3_matches_scipy():
                                medfilt(r), atol=1e-12)
 
 
-def test_filter_matches_oracle_on_real_scans(ijac):
+def test_filter_matches_oracle_on_reference_world_scans(
+        seeded_reference_world):
+    scans = seeded_reference_world.scans
     p = oracle.OracleParams()
-    prep = _oracle_prep(ijac.scans, p)
-    sel = np.arange(0, ijac.T, 97)
-    ranges = preprocess_ranges(jnp.asarray(ijac.scans[sel], jnp.float64),
+    prep = _oracle_prep(scans, p)
+    sel = np.arange(0, seeded_reference_world.T, 97)
+    ranges = preprocess_ranges(jnp.asarray(scans[sel], jnp.float64),
                                p.rango_laser_max, p.radio)
     dist, mask = filter_scans(ranges, p.rango_laser_max, p.dist_thr, 181)
     dist, mask = np.asarray(dist), np.asarray(mask)

@@ -1,13 +1,13 @@
-"""Real multi-process distributed dryrun (VERDICT round-1 item 1).
+"""Real multi-process distributed dryrun.
 
-Validates the multi-controller path end-to-end WITHOUT TPU hardware:
+Validates the multi-controller path end-to-end WITHOUT accelerators:
 
 * N separate OS processes each call ``jax.distributed.initialize`` and
-  join one coordinator (the TPU multi-host bring-up,
+  join one coordinator (the multi-host bring-up,
   icm_slam_tpu.parallel.distributed);
 * together they form ONE global 1-D time mesh over N x D virtual CPU
-  devices (the analog of a multi-host TPU slice; collectives ride Gloo
-  here, ICI/DCN there);
+  devices (the analog of a multi-host GPU job; collectives ride Gloo
+  here, NCCL there);
 * every process builds ONLY its host-local shard of the sweep inputs
   (``jax.make_array_from_process_local_data`` via
   parallel.mesh.put_time_sharded — device_put cannot address remote
@@ -22,7 +22,7 @@ Usage:
 
 The reference has no multi-process anything (its only comm is a websocket
 to rosbridge, /root/reference/scripts/ICM_SLAM.py:267-299); this is the
-TPU-native scaling path (BASELINE config 5).
+multi-host scaling path (BASELINE config 5).
 """
 import argparse
 import json

@@ -1,13 +1,16 @@
 """Generate golden traces from the NumPy oracle for test/ATE validation.
 
 Usage:
-    python tools/make_golden.py [--dataset ijac2018|palomar] [--iters N]
-                                [--frames T] [--criterion C] [--out PATH]
+    python tools/make_golden.py [--dataset reference|/path/to.mat]
+                                [--iters N] [--frames T] [--criterion C]
+                                [--out PATH]
 
 Writes an .npz with x_init (3,T), x (3,T), map (2,K), counts (K,), changes.
-The palomar dataset gets the filtrar_obs.m noise-cap preprocessing (via
-icm_slam_tpu.data.datasets.load_palomar) before the oracle runs, matching
-what the engine sees.
+The default dataset is the seeded reference-shape world
+(icm_slam_tpu.data.datasets.reference_world); the checked-in goldens are
+
+    python tools/make_golden.py --frames 400 --iters 3
+    python tools/make_golden.py --iters 30
 """
 import argparse
 import os
@@ -24,8 +27,8 @@ from reference_oracle import OracleParams, run_pipeline  # noqa: E402
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dataset", default="ijac2018",
-                    help="ijac2018 | palomar")
+    ap.add_argument("--dataset", default="reference",
+                    help="reference | /path/to.mat")
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--frames", type=int, default=0, help="0 = all")
     ap.add_argument("--criterion", default="inconsistent")
@@ -49,7 +52,8 @@ def main():
 
     path = args.out or os.path.join(
         REPO, "tests", "golden",
-        f"{args.dataset}_T{T}_N{args.iters}_{args.criterion}.npz")
+        f"{os.path.basename(args.dataset).split('.')[0]}_T{T}_N{args.iters}"
+        f"_{args.criterion}.npz")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **out, wall_seconds=dt, frames=T,
                         iters=args.iters, criterion=args.criterion)
